@@ -1,4 +1,4 @@
-// Native I/O runtime for eppm_tpu: PPM/PGM image codec, Middlebury .flo
+// Native I/O runtime for eppm: PPM/PGM image codec, Middlebury .flo
 // codec, and a threaded batch frame loader.
 //
 // The reference's runtime does this in C++ too: PPM loading at
@@ -6,8 +6,8 @@
 // 202021.25, little-endian w/h + interleaved uv) in
 // 3rdparty/middlebury/flowIO.cpp.  This is a fresh implementation of the
 // same formats with a batch path the single-pair reference never needed:
-// the TPU pipeline streams hundreds of frame pairs, and Python-side
-// decoding becomes the bottleneck long before the chip does.
+// the streaming pipeline decodes hundreds of frame pairs, and Python-side
+// decoding becomes the bottleneck long before the device does.
 //
 // Exposed as a plain C ABI for ctypes (no pybind11 in this toolchain).
 // All functions return 0 on success, negative errno-style codes on error.
@@ -203,7 +203,7 @@ int eppm_flo_read(const char* path, float* out, int h, int w) {
 // ---- PNG scanline unfilter ---------------------------------------------
 //
 // Undo PNG row filters (spec: RFC 2083 section 6) for the KITTI 16-bit
-// flow PNG reader (eppm_tpu/io/kitti.py).  Average/Paeth predictors are
+// flow PNG reader (eppm/io/kitti.py).  Average/Paeth predictors are
 // sequentially dependent along the row, which makes them pathologically
 // slow in Python; here each row is a trivial linear pass.
 // `raw` is the zlib-inflated IDAT stream: h rows of (1 filter byte +

@@ -4,7 +4,7 @@ The shared library (native/eppm_io.cpp — PPM/PGM + Middlebury .flo
 codecs, threaded batch decoder, PNG unfilter; see SURVEY.md §2.5/2.6)
 is a plain ctypes library, not a CPython extension, so it is built with
 the Makefile and shipped as package data.  The build is best-effort:
-eppm_tpu/io/native.py falls back to the pure-Python codecs when the
+eppm/io/native.py falls back to the pure-Python codecs when the
 library is missing, so a toolchain-less install still works.
 """
 
@@ -29,7 +29,7 @@ class BuildWithNative(build_py):
         except (OSError, subprocess.SubprocessError):
             pass
         if os.path.exists(so):
-            shutil.copy2(so, os.path.join(root, "eppm_tpu", "libeppm_io.so"))
+            shutil.copy2(so, os.path.join(root, "eppm", "libeppm_io.so"))
         super().run()
 
 

@@ -20,8 +20,8 @@ sys.path.insert(
 )
 import comm_model  # noqa: E402
 
-from eppm_tpu.config import EPPMConfig, PatchMatchConfig, PyramidConfig, RefineConfig  # noqa: E402
-from eppm_tpu.parallel import make_mesh  # noqa: E402
+from eppm.config import EPPMConfig, PatchMatchConfig, PyramidConfig, RefineConfig  # noqa: E402
+from eppm.parallel import make_mesh  # noqa: E402
 
 
 def _cfg(depth=3):
@@ -35,7 +35,7 @@ def _cfg(depth=3):
 def _traced_exchanges(h, w, cfg, ny, nx):
     """Record every (halo, tile_shape) halo_exchange_2d call made while
     tracing the sharded pipeline (eval_shape: no compile, no execute)."""
-    import eppm_tpu.parallel.sharded as S
+    import eppm.parallel.sharded as S
 
     recorded = []
     real = S.halo_exchange_2d
@@ -106,7 +106,7 @@ def test_weak_scaling_boundary_not_area():
 def test_efficiency_meets_baseline_target():
     """The >=80% BASELINE scaling-efficiency target holds with wide
     margin in the analytic model for every BASELINE config shape."""
-    from eppm_tpu.config import DEFAULT_CONFIG
+    from eppm.config import DEFAULT_CONFIG
 
     for h, w, ny, nx in [
         (480, 640, 2, 2),

@@ -11,16 +11,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from eppm_tpu.config import CostConfig, PatchMatchConfig, SubpixelConfig
-from eppm_tpu.ops.color import rgb2luv, rgb2yuv, yuv2rgb
-from eppm_tpu.ops.refine import guide_image_smoothing, median_filter
-from eppm_tpu.ops.subpixel import (
+from eppm.config import CostConfig, PatchMatchConfig, SubpixelConfig
+from eppm.ops.color import rgb2luv, rgb2yuv, yuv2rgb
+from eppm.ops.refine import guide_image_smoothing, median_filter
+from eppm.ops.subpixel import (
     bicubic_resize2x,
     bicubic_shift,
     bspline_weights,
     subpixel_refine,
 )
-from eppm_tpu.ops.warp import warp_image_by_flow
+from eppm.ops.warp import warp_image_by_flow
 
 
 def _textured(rng, h, w):
@@ -34,7 +34,7 @@ def _textured(rng, h, w):
 # ---- native I/O ---------------------------------------------------------
 
 def test_native_io_roundtrip(tmp_path):
-    from eppm_tpu.io import native
+    from eppm.io import native
 
     if not native.available():
         pytest.skip("native library not built")
@@ -45,7 +45,7 @@ def test_native_io_roundtrip(tmp_path):
     back = native.read_ppm_native(p)
     np.testing.assert_array_equal(back, img)
     # python <-> native cross-compat
-    from eppm_tpu.io.ppm import read_ppm as read_py
+    from eppm.io.ppm import read_ppm as read_py
 
     np.testing.assert_array_equal(read_py(p), img)
     flow = rng.normal(size=(15, 21, 2)).astype(np.float32)
@@ -55,7 +55,7 @@ def test_native_io_roundtrip(tmp_path):
 
 
 def test_native_batch(tmp_path):
-    from eppm_tpu.io import native, read_ppm_batch, write_ppm
+    from eppm.io import native, read_ppm_batch, write_ppm
 
     rng = np.random.default_rng(1)
     paths = []
@@ -73,8 +73,8 @@ def test_native_batch(tmp_path):
 # ---- CLI ----------------------------------------------------------------
 
 def test_cli_overrides():
-    from eppm_tpu.cli import apply_overrides
-    from eppm_tpu.config import DEFAULT_CONFIG
+    from eppm.cli import apply_overrides
+    from eppm.config import DEFAULT_CONFIG
 
     cfg = apply_overrides(
         DEFAULT_CONFIG,
@@ -198,9 +198,9 @@ def test_subpixel_refine_improves_fractional_shift(rng):
 # ---- scaled / plane-fitting PatchMatch ---------------------------------
 
 def test_patchmatch_variants_run(rng):
-    from eppm_tpu.ops.cost import pack_frame
-    from eppm_tpu.ops.census import census_transform
-    from eppm_tpu.ops.patchmatch import (
+    from eppm.ops.cost import pack_frame
+    from eppm.ops.census import census_transform
+    from eppm.ops.patchmatch import (
         patchmatch_planefitting,
         patchmatch_scaled,
     )
@@ -224,9 +224,9 @@ def test_patchmatch_variants_run(rng):
 
 
 def test_line_propagate_reduces_cost(rng):
-    from eppm_tpu.ops.cost import pack_frame, patch_cost
-    from eppm_tpu.ops.census import census_transform
-    from eppm_tpu.ops.patchmatch import line_propagate, random_init
+    from eppm.ops.cost import pack_frame, patch_cost
+    from eppm.ops.census import census_transform
+    from eppm.ops.patchmatch import line_propagate, random_init
 
     h, w = 20, 24
     img2 = _textured(rng, h, w)
@@ -246,7 +246,7 @@ def test_line_propagate_reduces_cost(rng):
 
 
 def test_timing_utils():
-    from eppm_tpu.utils import DeviceTimer, Timer, time_stage
+    from eppm.utils import DeviceTimer, Timer, time_stage
 
     t = Timer().start()
     assert t.stop() >= 0.0
@@ -258,7 +258,7 @@ def test_timing_utils():
 
 
 def test_bad_pixel_error_map():
-    from eppm_tpu.metrics import bad_pixel_rate
+    from eppm.metrics import bad_pixel_rate
 
     gt = np.zeros((4, 5, 2), np.float32)
     gt[..., 0] = 1.0
@@ -273,9 +273,9 @@ def test_bad_pixel_error_map():
 @pytest.mark.slow
 def test_cli_stream_mode(tmp_path, rng):
     """Streaming video mode: N frames -> N-1 .flo files."""
-    from eppm_tpu.cli import main as cli_main
-    from eppm_tpu.io import write_ppm
-    from eppm_tpu.io.flo import read_flo
+    from eppm.cli import main as cli_main
+    from eppm.io import write_ppm
+    from eppm.io.flo import read_flo
 
     frames_dir = tmp_path / "frames"
     out_dir = tmp_path / "flows"
@@ -293,24 +293,28 @@ def test_cli_stream_mode(tmp_path, rng):
     assert len(flows) == 2
     f = read_flo(str(flows[0]))
     assert f.shape == (48, 64, 2) and np.isfinite(f).all()
-    # default readback is 1/64-px int16 fixed point
-    np.testing.assert_array_equal(f * 64.0, np.round(f * 64.0))
+    # float32 readback: the streamed flow is the pipeline's own output
+    import dataclasses
 
-    exact_dir = tmp_path / "flows_exact"
-    rc = cli_main([
-        "--frames-dir", str(frames_dir), "--out-dir", str(exact_dir),
-        "--exact-readback",
-        "--set", "pyramid.max_depth=2",
-        "--set", "refine.wmf_coarse_iters=2",
-    ])
-    assert rc == 0
-    fe = read_flo(str(sorted(exact_dir.iterdir())[0]))
-    # quantized path within half a quantum of the exact path
-    np.testing.assert_allclose(f, fe, atol=1 / 128 + 1e-6)
+    from eppm.config import DEFAULT_CONFIG
+    from eppm.io import read_image
+    from eppm.pipeline import compute_flow_jit
+
+    cfg = dataclasses.replace(
+        DEFAULT_CONFIG,
+        pyramid=dataclasses.replace(DEFAULT_CONFIG.pyramid, max_depth=2),
+        refine=dataclasses.replace(DEFAULT_CONFIG.refine, wmf_coarse_iters=2),
+    )
+    frames = sorted(frames_dir.iterdir())
+    want = np.asarray(compute_flow_jit(
+        jnp.asarray(read_image(str(frames[0]))),
+        jnp.asarray(read_image(str(frames[1]))), None, cfg,
+    ))
+    np.testing.assert_array_equal(f, want)
 
 
 def test_kitti_flow_roundtrip(tmp_path):
-    from eppm_tpu.io.kitti import read_kitti_flow, write_kitti_flow
+    from eppm.io.kitti import read_kitti_flow, write_kitti_flow
 
     rng = np.random.default_rng(8)
     flow = rng.normal(0, 30, (17, 23, 2)).astype(np.float32)
@@ -330,7 +334,7 @@ def _write_filtered_png16(path, img):
     import struct
     import zlib
 
-    from eppm_tpu.io.png import _SIG, _chunk
+    from eppm.io.png import _SIG, _chunk
 
     h, w = img.shape[:2]
     bpp = 6
@@ -373,8 +377,8 @@ def _write_filtered_png16(path, img):
 def test_kitti_png_all_filters(tmp_path, monkeypatch):
     """Sub/Up/Average/Paeth scanline filters decode exactly, through both
     the native C unfilter and the pure-NumPy fallback."""
-    from eppm_tpu.io import native as native_mod
-    from eppm_tpu.io.kitti import read_png16
+    from eppm.io import native as native_mod
+    from eppm.io.kitti import read_png16
 
     rng = np.random.default_rng(3)
     img = rng.integers(0, 65536, (11, 17, 3), dtype=np.uint16)
@@ -388,8 +392,8 @@ def test_kitti_png_all_filters(tmp_path, monkeypatch):
 def test_kitti_png_missing_ihdr(tmp_path):
     import zlib
 
-    from eppm_tpu.io.kitti import read_png16
-    from eppm_tpu.io.png import _SIG, _chunk
+    from eppm.io.kitti import read_png16
+    from eppm.io.png import _SIG, _chunk
 
     p = str(tmp_path / "noihdr.png")
     with open(p, "wb") as f:
@@ -403,8 +407,8 @@ def test_kitti_png_missing_ihdr(tmp_path):
 def test_cli_override_rejects_non_field():
     """Properties (lr_thresh) are not config fields; the override must
     fail with a clean message, not an opaque dataclasses TypeError."""
-    from eppm_tpu.cli import apply_overrides
-    from eppm_tpu.config import DEFAULT_CONFIG
+    from eppm.cli import apply_overrides
+    from eppm.config import DEFAULT_CONFIG
 
     with pytest.raises(SystemExit, match="unknown config field"):
         apply_overrides(DEFAULT_CONFIG, ["lr_thresh=3"])
@@ -417,8 +421,8 @@ def test_dense_subpixel_fit_knob(rng):
     off (it is opt-in; see PERF.md 'Subpixel variants')."""
     import dataclasses
 
-    from eppm_tpu.config import EPPMConfig, PyramidConfig, RefineConfig
-    from eppm_tpu.pipeline import compute_flow_jit
+    from eppm.config import EPPMConfig, PyramidConfig, RefineConfig
+    from eppm.pipeline import compute_flow_jit
 
     small = rng.random((26, 34, 3)).astype(np.float32)
     img2 = np.asarray(
@@ -454,8 +458,8 @@ def test_dense_subpixel_fit_knob(rng):
 def test_png_codec_variants(tmp_path, monkeypatch):
     """8/16-bit gray/RGB/RGBA round-trips through the generic PNG codec
     (io/png.py), via both the native unfilter and the NumPy fallback."""
-    from eppm_tpu.io import native as native_mod
-    from eppm_tpu.io.png import read_png, write_png
+    from eppm.io import native as native_mod
+    from eppm.io.png import read_png, write_png
 
     rng2 = np.random.default_rng(11)
     cases = [
@@ -479,8 +483,8 @@ def test_png_codec_variants(tmp_path, monkeypatch):
 def test_read_image_normalizes(tmp_path):
     """read_image returns (H, W, 3) uint8 for gray, RGBA and 16-bit PNGs
     (Sintel-style frame ingestion, BASELINE Sintel config)."""
-    from eppm_tpu.io import read_image
-    from eppm_tpu.io.png import write_png
+    from eppm.io import read_image
+    from eppm.io.png import write_png
 
     rng2 = np.random.default_rng(12)
     gray = rng2.integers(0, 256, (7, 8), dtype=np.uint8)
@@ -501,9 +505,9 @@ def test_read_image_normalizes(tmp_path):
 
 def test_cli_stream_mode_png(tmp_path, rng):
     """Streaming consumes PNG frame sequences (Sintel-style) end-to-end."""
-    from eppm_tpu.cli import main as cli_main
-    from eppm_tpu.io.flo import read_flo
-    from eppm_tpu.io.png import write_png
+    from eppm.cli import main as cli_main
+    from eppm.io.flo import read_flo
+    from eppm.io.png import write_png
 
     frames_dir = tmp_path / "frames"
     out_dir = tmp_path / "flows"
@@ -529,8 +533,8 @@ def test_cli_stream_mode_png(tmp_path, rng):
 def test_cli_preset_expansion():
     """--set preset=fast expands to its override list; later explicit
     overrides win; unknown presets are rejected."""
-    from eppm_tpu.cli import PRESETS, apply_overrides
-    from eppm_tpu.config import DEFAULT_CONFIG
+    from eppm.cli import PRESETS, apply_overrides
+    from eppm.config import DEFAULT_CONFIG
 
     cfg = apply_overrides(DEFAULT_CONFIG, ["preset=fast"])
     assert cfg.dense_cand_shape == "plus"
@@ -553,8 +557,8 @@ def test_cli_preset_expansion():
 def test_preset_before_any_user_override():
     """A preset appearing AFTER an explicit --set must not clobber it
     (presets are hoisted to the front of the override list)."""
-    from eppm_tpu.cli import apply_overrides
-    from eppm_tpu.config import DEFAULT_CONFIG
+    from eppm.cli import apply_overrides
+    from eppm.config import DEFAULT_CONFIG
 
     cfg = apply_overrides(
         DEFAULT_CONFIG, ["refine.blf_sigma_spatial=5.0", "preset=fast"]
@@ -570,7 +574,7 @@ def test_eval_dossier_fingerprint_current():
     import json
     import os
 
-    from eppm_tpu.config import config_fingerprint
+    from eppm.config import config_fingerprint
 
     path = os.path.join(os.path.dirname(__file__), "..", "EVAL.json")
     if not os.path.exists(path):

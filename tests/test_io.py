@@ -1,12 +1,7 @@
-import os
-
 import numpy as np
 import pytest
 
-from eppm_tpu.io import read_flo, read_ppm, write_flo, write_ppm
-
-GROVE1 = "/root/reference/frame10.ppm"
-
+from eppm.io import read_flo, read_ppm, write_flo, write_ppm
 
 def test_ppm_roundtrip(tmp_path, rng):
     img = rng.integers(0, 256, size=(13, 17, 3), dtype=np.uint8)
@@ -32,13 +27,19 @@ def test_ppm_comment_header(tmp_path):
     assert img[0, 0, 0] == 0 and img[1, 1, 2] == 11
 
 
-@pytest.mark.skipif(not os.path.exists(GROVE1), reason="no reference data")
-def test_read_grove_pair():
-    img = read_ppm(GROVE1)
-    # main.cpp:38-39 hardcodes 640x480 for the bundled pair
+def test_read_grove_pair(tmp_path):
+    """A generated frame at the Grove pair's shape (main.cpp:38-39
+    hardcodes 640x480) survives the PPM codec as textured uint8."""
+    from eppm.synthetic import textured_frame
+
+    src = (textured_frame(480, 640, seed=3) * 255).round().astype(np.uint8)
+    p = str(tmp_path / "frame10.ppm")
+    write_ppm(p, src)
+    img = read_ppm(p)
     assert img.shape == (480, 640, 3)
     assert img.dtype == np.uint8
-    assert img.std() > 10  # a real photo, not constant
+    assert img.std() > 10  # textured, not constant
+    np.testing.assert_array_equal(img, src)
 
 
 def test_flo_roundtrip(tmp_path, rng):

@@ -1,7 +1,7 @@
 import numpy as np
 
-from eppm_tpu.config import UNKNOWN_FLOW
-from eppm_tpu.metrics import bad_pixel_rate, flow_error, warp_error
+from eppm.config import UNKNOWN_FLOW
+from eppm.metrics import bad_pixel_rate, flow_error, warp_error
 
 
 def test_epe_exact():

@@ -4,9 +4,9 @@ the reference CUDA semantics loop-for-loop."""
 import numpy as np
 import jax.numpy as jnp
 
-from eppm_tpu.ops.census import census_transform
-from eppm_tpu.ops.color import flow_to_color, make_color_wheel
-from eppm_tpu.ops.resize import (
+from eppm.ops.census import census_transform
+from eppm.ops.color import flow_to_color, make_color_wheel
+from eppm.ops.resize import (
     bilinear_resize,
     gaussian_filter,
     gaussian_pyramid,

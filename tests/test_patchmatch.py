@@ -4,10 +4,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from eppm_tpu.config import CostConfig, PatchMatchConfig
-from eppm_tpu.ops.census import census_transform
-from eppm_tpu.ops.cost import pack_frame
-from eppm_tpu.ops.patchmatch import patchmatch, random_init
+from eppm.config import CostConfig, PatchMatchConfig
+from eppm.ops.census import census_transform
+from eppm.ops.cost import pack_frame
+from eppm.ops.patchmatch import patchmatch, random_init
 
 
 def _packed_pair(rng, h, w, shift_x, shift_y):
@@ -72,8 +72,8 @@ def test_match_coarse_bidi_equals_two_calls(rng):
     """match_coarse_bidi shares pyramids/descriptors/global sweep across
     directions but must return per-direction results identical to two
     match_coarse calls (same quantized scores, same tie order)."""
-    from eppm_tpu.config import MatchConfig
-    from eppm_tpu.ops.match import match_coarse, match_coarse_bidi
+    from eppm.config import MatchConfig
+    from eppm.ops.match import match_coarse, match_coarse_bidi
 
     h, w = 40, 48
     img2 = rng.random((h, w, 3)).astype(np.float32)
@@ -92,8 +92,8 @@ def test_match_coarse_bidi_equals_two_calls(rng):
 def test_match_coarse_bidi_warm_start(rng):
     """Warm-start (init_flow) bidi equals two warm single-direction calls
     (forward seeded as-is, backward negated)."""
-    from eppm_tpu.config import MatchConfig
-    from eppm_tpu.ops.match import match_coarse, match_coarse_bidi
+    from eppm.config import MatchConfig
+    from eppm.ops.match import match_coarse, match_coarse_bidi
 
     h, w = 40, 48
     img2 = rng.random((h, w, 3)).astype(np.float32)

@@ -3,7 +3,7 @@
 The reference repo bundles no GT .flo (SURVEY.md section 4), so accuracy
 gates use synthetic warps where EPPM must recover the flow: uniform
 translation and a smooth affine-ish field.  Sizes/iterations are trimmed
-for CPU CI; the full-parameter Grove run happens in bench.py on TPU.
+for CPU CI; the full-size runs on the card are in chip_smoke.py.
 """
 
 import dataclasses
@@ -13,14 +13,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from eppm_tpu.config import (
+from eppm.config import (
     EPPMConfig,
     PatchMatchConfig,
     PyramidConfig,
     RefineConfig,
 )
-from eppm_tpu.metrics import flow_error
-from eppm_tpu.pipeline import EPPMFlow, compute_flow, compute_flow_jit
+from eppm.metrics import flow_error
+from eppm.pipeline import EPPMFlow, compute_flow, compute_flow_jit
 
 
 def _test_cfg(depth=2):
@@ -154,7 +154,7 @@ def test_staged_pipeline_matches_one_program(rng, monkeypatch):
     """The >1M-pixel staged execution path, forced on a small image, must
     agree with the monolithic program at the decision level (see
     tests/test_sharded.py for why not bitwise)."""
-    import eppm_tpu.pipeline as P
+    import eppm.pipeline as P
 
     cfg = _test_cfg()
     h, w = 64, 80
@@ -186,17 +186,17 @@ def test_staged_refine_disagreements_are_ties(rng):
     offsets with one oracle evaluation — disagreements must be exact
     quantized-cost ties.  (The pipeline outputs themselves stay under the
     statistical gate: smoothing diffuses tie differences spatially.)"""
-    from eppm_tpu.config import DEFAULT_CONFIG
-    from eppm_tpu.ops.census import census_transform
-    from eppm_tpu.ops.cost import pack_frame
-    from eppm_tpu.ops.dense import (
+    from eppm.config import DEFAULT_CONFIG
+    from eppm.ops.census import census_transform
+    from eppm.ops.cost import pack_frame
+    from eppm.ops.dense import (
         center_out_offsets,
         dense_refine_flow,
         residual_costs,
         warp_pack,
     )
-    from eppm_tpu.ops.pallas_smooth import flow_smoothing_auto
-    from eppm_tpu.ops.resize import bilinear_resize
+    from eppm.ops.refine import flow_smoothing
+    from eppm.ops.resize import bilinear_resize
 
     cfg = DEFAULT_CONFIG
     h, w = 64, 96
@@ -225,7 +225,7 @@ def test_staged_refine_disagreements_are_ties(rng):
     def fused(c):
         f = up(c)
         r = refine(f)
-        return r, flow_smoothing_auto(r, jnp.asarray(img1), cfg.refine)
+        return r, flow_smoothing(r, jnp.asarray(img1), cfg.refine)
 
     fused_refine = np.asarray(jax.jit(fused)(coarse)[0])
 
@@ -266,12 +266,12 @@ def test_staged_refine_disagreements_are_ties(rng):
 )
 @pytest.mark.slow
 def test_staged_pipeline_all_variants(rng, monkeypatch, variant):
-    """Every non-default option must run through the staged path (at
-    1080p+ the one-program path faults the TPU worker; the staged path
-    is the only safe route, so it must cover all variants)."""
+    """Every non-default option must run through the staged path (the
+    route of every input above STAGED_PIPELINE_THRESHOLD, so it must
+    cover all variants)."""
     import dataclasses
 
-    import eppm_tpu.pipeline as P
+    import eppm.pipeline as P
 
     cfg = _test_cfg()
     fine_wmf = False

@@ -4,14 +4,14 @@ CUDA kernels (bao_pmflow_refine_kernel.cu)."""
 import numpy as np
 import jax.numpy as jnp
 
-from eppm_tpu.config import (
+from eppm.config import (
     FLT_MAX,
     INVALID_LOCATION,
     UNKNOWN_FLOW,
     CostConfig,
     RefineConfig,
 )
-from eppm_tpu.ops.refine import (
+from eppm.ops.refine import (
     fill_holes,
     flow_smoothing,
     flow_to_nnf,
@@ -267,13 +267,13 @@ def test_wmf_matches_oracle_full(rng):
 
 
 def test_wmf_polish_mode_invariants(rng):
-    """Frozen-valid polish mode (ops/pallas_wmf.py::wmf_polish_occlusions
+    """Frozen-valid polish mode (ops/refine.py::wmf_polish_occlusions
     composition): valid pixels pass through untouched, holes become
     valid wherever the fill found a valid target, one iteration is the
     fixed point (candidates/supports are frozen), and holes whose window
     holds an originally-valid pixel take a polished value while
     unreachable holes keep the fill exactly."""
-    from eppm_tpu.ops.refine import fill_holes
+    from eppm.ops.refine import fill_holes
 
     cfg = RefineConfig(wmf_radius=2, wmf_sigma_spatial=2.0,
                        wmf_sigma_range=0.5)
@@ -324,7 +324,7 @@ def test_polish_unreachable_fill_bounded(rng):
     QUALITY blowup: 240x320 translation cases at 130-600 EPE)."""
     import dataclasses
 
-    from eppm_tpu.ops.pallas_wmf import coarse_occlusion_reconstruct
+    from eppm.ops.refine import coarse_occlusion_reconstruct
 
     cfg = RefineConfig(wmf_radius=2, wmf_sigma_spatial=2.0,
                        wmf_sigma_range=0.5)
@@ -354,7 +354,7 @@ def test_coarse_occlusion_reconstruct_paths(rng):
     frozen-valid polish composed by hand."""
     import dataclasses
 
-    from eppm_tpu.ops.pallas_wmf import (
+    from eppm.ops.refine import (
         coarse_occlusion_reconstruct, wmf_polish_occlusions,
     )
 
@@ -517,26 +517,6 @@ def test_flow_smoothing_preserves_constant_flow(rng):
     np.testing.assert_allclose(got, flow, rtol=1e-5)
 
 
-def test_flow_smoothing_pallas_interpret_matches_oracle(rng):
-    """The Pallas kernel's logic (y-roll + static x-slice restructuring)
-    vs the XLA oracle, via interpret mode — the real-chip check lives in
-    tools/tpu_check.py."""
-    from eppm_tpu.ops.pallas_smooth import flow_smoothing_pallas
-
-    cfg = RefineConfig()
-    h, w = 40, 150
-    flow = rng.normal(0, 5, (h, w, 2)).astype(np.float32)
-    flow[rng.random((h, w)) < 0.1] = UNKNOWN_FLOW
-    img = rng.random((h, w, 3)).astype(np.float32)
-    ref = np.asarray(flow_smoothing(jnp.asarray(flow), jnp.asarray(img), cfg))
-    got = np.asarray(
-        flow_smoothing_pallas(
-            jnp.asarray(flow), jnp.asarray(img), cfg, interpret=True
-        )
-    )
-    np.testing.assert_allclose(got, ref, atol=2e-4, rtol=1e-4)
-
-
 def test_fill_photometric_arbitration_recovers_visible(rng):
     """Photometric fill arbitration (round 5): a mis-invalidated but
     VISIBLE pixel whose directional color fill would pick the wrong
@@ -545,10 +525,10 @@ def test_fill_photometric_arbitration_recovers_visible(rng):
     (config.RefineConfig.fill_photometric_thresh)."""
     import dataclasses
 
-    from eppm_tpu.ops.census import census_transform
-    from eppm_tpu.ops.cost import pack_frame
-    from eppm_tpu.ops.pallas_wmf import coarse_occlusion_reconstruct
-    from eppm_tpu.config import CostConfig
+    from eppm.ops.census import census_transform
+    from eppm.ops.cost import pack_frame
+    from eppm.ops.refine import coarse_occlusion_reconstruct
+    from eppm.config import CostConfig
 
     h, w = 32, 40
     # frame 1: textured left half, differently textured right half
@@ -595,3 +575,53 @@ def test_fill_photometric_arbitration_recovers_visible(rng):
     )
     # feature off: same call signature still works (packs ignored)
     assert np.asarray(out2[0]).shape == (h, w)
+
+
+def test_flow_smoothing_ragged_matches_brute_force(rng):
+    """flow_smoothing at the default 441-tap window (radius 10) on a
+    ragged 37x83 field against a NumPy brute force that loops over the
+    window offsets: out-of-image and unknown-flow taps are skipped,
+    empty windows keep their value."""
+    cfg = RefineConfig(blf_sigma_range=0.5)  # normal-range f32 weights
+    h, w = 37, 83
+    r = cfg.blf_radius
+    assert (2 * r + 1) ** 2 == 441
+    flow = rng.normal(0, 5, (h, w, 2)).astype(np.float32)
+    flow[rng.random((h, w)) < 0.1] = UNKNOWN_FLOW
+    img = rng.random((h, w, 3)).astype(np.float32)
+    got = np.asarray(flow_smoothing(jnp.asarray(flow), jnp.asarray(img), cfg))
+
+    known = (flow[..., 0] <= 1e9) & (flow[..., 1] <= 1e9)
+    pf = np.pad(np.where(known[..., None], flow, 0.0), ((r, r), (r, r), (0, 0)))
+    pk = np.pad(known, r)
+    pimg = np.pad(img, ((r, r), (r, r), (0, 0)))
+    acc = np.zeros((h, w, 2), np.float64)
+    wsum = np.zeros((h, w), np.float64)
+    sig_r2, sig_s2 = cfg.blf_sigma_range ** 2, cfg.blf_sigma_spatial ** 2
+    for dy in range(-r, r + 1):
+        for dx in range(-r, r + 1):
+            sl = (slice(r + dy, r + dy + h), slice(r + dx, r + dx + w))
+            dr = np.abs(pimg[sl] - img).max(axis=-1)
+            wgt = (
+                np.exp(-(dr * dr) / sig_r2)
+                * np.exp(-(dy * dy) / sig_s2) * np.exp(-(dx * dx) / sig_s2)
+                * pk[sl]
+            )
+            acc += wgt[..., None] * pf[sl]
+            wsum += wgt
+    want = np.where(
+        (wsum > 0)[..., None], acc / np.maximum(wsum, 1e-300)[..., None], flow
+    )
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_occlusion_reconstruction_lives_in_refine():
+    """The occlusion chain is plain JAX in ops/refine.py."""
+    from eppm.ops import refine
+
+    for name in ("coarse_occlusion_reconstruct", "wmf_polish_occlusions",
+                 "_photometric_arbitrate"):
+        assert getattr(refine, name).__module__ == "eppm.ops.refine"
+    assert {"coarse_occlusion_reconstruct", "wmf_polish_occlusions"} <= set(
+        refine.__all__
+    )

@@ -13,14 +13,14 @@ from jax.sharding import Mesh
 from jax.sharding import PartitionSpec as P
 from jax import shard_map
 
-from eppm_tpu.config import EPPMConfig, PatchMatchConfig, PyramidConfig, RefineConfig
-from eppm_tpu.parallel import (
+from eppm.config import EPPMConfig, PatchMatchConfig, PyramidConfig, RefineConfig
+from eppm.parallel import (
     check_tileable,
     compute_flow_sharded,
     halo_exchange_2d,
     make_mesh,
 )
-from eppm_tpu.pipeline import compute_flow
+from eppm.pipeline import compute_flow
 
 
 def _cfg(depth=2):
@@ -102,6 +102,46 @@ def test_halo_exchange_constant_boundary():
     np.testing.assert_array_equal(top_tile[6:8, 2:6], np.asarray(full)[4:6])
 
 
+@pytest.mark.parametrize("ny,nx", [(1, 1), (1, 2), (2, 1), (2, 2)])
+def test_median_halo_matches_padded_median(ny, nx):
+    """The flow ring a sharded refine pass warps with: halo exchange,
+    3x3 median, then the positions beyond the frame clamped.  Every tile
+    must equal the single-chip field, median3 of the whole flow
+    edge-padded — a median of edge copies beyond the border is not."""
+    from eppm.ops.dense import median3_flow
+    from eppm.parallel.sharded import _clamp_to_frame
+
+    h, w, halo = 16, 24, 5
+    mesh = make_mesh(batch=1, y=ny, x=nx)
+    full = np.random.default_rng(3).integers(-6, 7, (h, w, 2)).astype(
+        np.float32
+    )
+    th, tw = h // ny, w // nx
+
+    def fn(tile):
+        y0 = jax.lax.axis_index("y") * th
+        x0 = jax.lax.axis_index("x") * tw
+        fh = halo_exchange_2d(tile[0], halo + 1)
+        fh = _clamp_to_frame(
+            median3_flow(fh), y0 - halo - 1, x0 - halo - 1, h, w
+        )
+        return fh[None, 1:-1, 1:-1]
+
+    tiled = np.asarray(shard_map(
+        fn, mesh=mesh, in_specs=P("batch", "y", "x", None),
+        out_specs=P("batch", "y", "x", None), check_vma=False,
+    )(jnp.asarray(full)[None]))[0]
+    want = np.pad(np.asarray(median3_flow(jnp.asarray(full))),
+                  ((halo, halo), (halo, halo), (0, 0)), mode="edge")
+    eh, ew = th + 2 * halo, tw + 2 * halo
+    for iy in range(ny):
+        for ix in range(nx):
+            np.testing.assert_array_equal(
+                tiled[iy * eh:(iy + 1) * eh, ix * ew:(ix + 1) * ew],
+                want[iy * th:iy * th + eh, ix * tw:ix * tw + ew],
+            )
+
+
 def test_check_tileable():
     cfg = _cfg(depth=3)
     check_tileable(64, 96, cfg, 2, 2)
@@ -176,7 +216,7 @@ def test_sharded_mesh_shape_invariance(rng):
 def test_sharded_pad_to_tileable(rng):
     """Non-divisible (KITTI-like) shapes run via pad-and-crop and match
     the single-chip result on identically padded-then-cropped frames."""
-    from eppm_tpu.parallel.sharded import pad_to_tileable
+    from eppm.parallel.sharded import pad_to_tileable
 
     cfg = _cfg(depth=2)
     h, w = 62, 94  # not divisible by mesh*2^(depth-1)
@@ -229,17 +269,17 @@ def test_sharded_refine_disagreements_are_ties(rng):
     stage, which is decision-identical by construction: same program,
     same inputs on every device).
     """
-    from eppm_tpu.config import DEFAULT_CONFIG
-    from eppm_tpu.ops.census import census_transform
-    from eppm_tpu.ops.cost import pack_frame
-    from eppm_tpu.ops.dense import (
+    from eppm.config import DEFAULT_CONFIG
+    from eppm.ops.census import census_transform
+    from eppm.ops.cost import pack_frame
+    from eppm.ops.dense import (
         center_out_offsets,
         dense_refine_flow,
         residual_costs,
         warp_pack,
     )
-    from eppm_tpu.parallel.halo import halo_exchange_2d
-    from eppm_tpu.parallel.sharded import _slice_tile_haloed
+    from eppm.parallel.halo import halo_exchange_2d
+    from eppm.parallel.sharded import _slice_tile_haloed
 
     cfg = DEFAULT_CONFIG
     h, w = 64, 96
@@ -442,7 +482,7 @@ def test_sharded_temporal_streaming_chain(rng):
     cross-program gate and be bitwise deterministic across reruns."""
     import dataclasses
 
-    from eppm_tpu.pipeline import compute_flow as cf
+    from eppm.pipeline import compute_flow as cf
 
     h, w = 64, 96
     f0 = _textured(rng, h, w)

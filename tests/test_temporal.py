@@ -14,9 +14,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from eppm_tpu.config import EPPMConfig, MatchConfig, PyramidConfig, RefineConfig
-from eppm_tpu.metrics import flow_error
-from eppm_tpu.pipeline import EPPMFlow, compute_flow_jit
+from eppm.config import EPPMConfig, MatchConfig, PyramidConfig, RefineConfig
+from eppm.metrics import flow_error
+from eppm.pipeline import EPPMFlow, compute_flow_jit
 
 
 def _textured(rng, h, w):
@@ -120,8 +120,8 @@ def test_sharded_temporal_warm_start(rng):
     """Warm start through the (1,2,2) mesh: the coarse level is
     replicated, so the sharded warm result must agree with the
     single-chip warm result at the usual cross-program gate."""
-    from eppm_tpu.parallel import compute_flow_sharded, make_mesh
-    from eppm_tpu.pipeline import compute_flow
+    from eppm.parallel import compute_flow_sharded, make_mesh
+    from eppm.pipeline import compute_flow
 
     base = _textured(rng, 64, 96)
     img1, img2 = base, np.roll(base, (2, 4), axis=(0, 1))
@@ -155,8 +155,8 @@ def test_sharded_temporal_warm_start(rng):
 def test_cli_temporal_stream(rng, tmp_path):
     """--frames-dir --temporal end-to-end: writes one .flo per pair with
     the expected motion."""
-    from eppm_tpu.cli import main
-    from eppm_tpu.io import read_flo, write_ppm
+    from eppm.cli import main
+    from eppm.io import read_flo, write_ppm
 
     base = (_textured(rng, 64, 96) * 255).astype(np.uint8)
     frames = _roll_seq(base, 4, 1, 3)

@@ -31,7 +31,7 @@ VARIANTS = [
 def run(group, extra, border=12):
     gt = "flow10.png" if group.startswith("kitti") else "flow10.flo"
     cmd = [
-        sys.executable, "-m", "eppm_tpu.cli",
+        sys.executable, "-m", "eppm.cli",
         "--eval-dir", os.path.join(ROOT, "evalset", group),
         "--pattern", f"frame10.ppm,frame11.ppm,{gt}",
         "--border", str(border), "--json",

@@ -1,11 +1,12 @@
 #!/usr/bin/env python
 """Analytic communication accounting for the sharded pipeline.
 
-Answers the scaling question the single-chip environment cannot measure
-(BASELINE north star: >=80% scaling efficiency on a multi-chip slice):
+Models the scaling question (BASELINE north star: >=80% scaling
+efficiency across devices) from the program's own traffic:
 per fine level, every halo exchange the sharded pipeline
-(eppm_tpu/parallel/sharded.py) performs is enumerated with its ring
-width, and the bytes each device moves over ICI are computed from the
+(eppm/parallel/sharded.py) performs is enumerated with its ring
+width, and the bytes each device moves over the interconnect are
+computed from the
 strip sizes ppermute actually sends (halo_exchange_1d exchanges halo
 strips, not whole tiles, so traffic scales with the tile BOUNDARY while
 compute scales with its AREA).
@@ -25,10 +26,11 @@ from the dense-refine tap count (the dominant term:
 (2r+1)^2 candidates x plane tables x 100 taps x ~16 f32 ops per tap).
 
 Scaling efficiency model: eff = t_comp / (t_comp + t_comm) assuming no
-overlap (pessimistic), with per-chip compute throughput and ICI
-bandwidth as parameters (defaults: TPU v5e ~197 TFLOP/s bf16 peak, VPU
-f32 path derated to ~3 TFLOP/s effective for this stencil mix — the
-measured Grove number — and 2 x 45 GB/s ICI links per axis).
+overlap (pessimistic), with per-device compute throughput and link
+bandwidth as parameters.  Defaults are the published H100 SXM figures
+(NVIDIA H100 data sheet, 700 W): 67 TFLOP/s float32 outside the tensor
+cores, and NVLink 900 GB/s per card, 450 GB/s each way.  They are
+published peaks, not measurements of this program.
 
 Usage:  python tools/comm_model.py            # table for the BASELINE configs
 """
@@ -40,7 +42,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from eppm_tpu.config import DEFAULT_CONFIG, EPPMConfig
+from eppm.config import DEFAULT_CONFIG, EPPMConfig
 
 
 def ring_bytes(th, tw, k, ch, dtype_bytes=4):
@@ -52,7 +54,7 @@ def ring_bytes(th, tw, k, ch, dtype_bytes=4):
 
 def refine_halo(cfg: EPPMConfig) -> int:
     """G+1: the flow-ring width of one dense refine pass (sharded.py)."""
-    from eppm_tpu.ops.cost import plane_offsets
+    from eppm.ops.cost import plane_offsets
 
     tmax = max(
         max(abs(i), abs(j))
@@ -112,21 +114,21 @@ def compute_flops(h, w, cfg: EPPMConfig, ny, nx):
     return flops
 
 
-def efficiency(h, w, cfg, ny, nx, flops_per_s, ici_bytes_per_s):
+def efficiency(h, w, cfg, ny, nx, flops_per_s, link_bytes_per_s):
     items = halo_traffic(h, w, cfg, ny, nx)
     comm = sum(b for _, b in items)
     comp = compute_flops(h, w, cfg, ny, nx)
-    t_comm = comm / ici_bytes_per_s
+    t_comm = comm / link_bytes_per_s
     t_comp = comp / flops_per_s
     return comp, comm, t_comp, t_comm, t_comp / (t_comp + t_comm)
 
 
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--flops", type=float, default=3e12,
-                   help="effective per-chip FLOP/s for this stencil mix")
-    p.add_argument("--ici", type=float, default=45e9,
-                   help="ICI bytes/s per direction per axis")
+    p.add_argument("--flops", type=float, default=67e12,
+                   help="per-device FLOP/s (default: H100 SXM float32)")
+    p.add_argument("--link", type=float, default=450e9,
+                   help="link bytes/s each way (default: H100 NVLink)")
     p.add_argument("--detail", action="store_true")
     args = p.parse_args()
     cfg = DEFAULT_CONFIG
@@ -144,7 +146,7 @@ def main():
           f"{'t_comm':>8s} {'t_comp':>8s} {'eff':>6s}")
     for name, h, w, ny, nx in configs:
         comp, comm, t_comp, t_comm, eff = efficiency(
-            h, w, cfg, ny, nx, args.flops, args.ici
+            h, w, cfg, ny, nx, args.flops, args.link
         )
         print(f"{name:36s} {ny}x{nx:<5d} {comm / 1e6:9.2f}M "
               f"{comp / 1e9:10.2f}G {t_comm * 1e3:7.3f}ms "

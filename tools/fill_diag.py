@@ -23,13 +23,13 @@ sys.path.insert(0, ROOT)
 import jax
 import jax.numpy as jnp
 
-from eppm_tpu.cli import apply_overrides
-from eppm_tpu.config import DEFAULT_CONFIG
-from eppm_tpu.io import read_flo, read_ppm
-from eppm_tpu.ops.match import match_coarse_bidi
-from eppm_tpu.ops.pallas_wmf import coarse_occlusion_reconstruct
-from eppm_tpu.ops.refine import fill_holes, lr_check, outlier_removal
-from eppm_tpu.pipeline import prepare_pyramids
+from eppm.cli import apply_overrides
+from eppm.config import DEFAULT_CONFIG
+from eppm.io import read_flo, read_ppm
+from eppm.ops.match import match_coarse_bidi
+from eppm.ops.refine import coarse_occlusion_reconstruct
+from eppm.ops.refine import fill_holes, lr_check, outlier_removal
+from eppm.pipeline import prepare_pyramids
 import dataclasses
 
 

@@ -25,18 +25,16 @@ sys.path.insert(0, ROOT)
 import jax
 import jax.numpy as jnp
 
-from eppm_tpu.config import DEFAULT_CONFIG
-from eppm_tpu import pipeline as P
-from eppm_tpu.io import read_flo, read_ppm
-from eppm_tpu.cli import apply_overrides
-from eppm_tpu.ops.refine import (
-    lr_check, outlier_removal, fill_holes, nnf_to_flow, flow_to_nnf,
+from eppm.config import DEFAULT_CONFIG
+from eppm import pipeline as P
+from eppm.io import read_flo, read_ppm
+from eppm.cli import apply_overrides
+from eppm.ops.refine import (
+    coarse_occlusion_reconstruct, fill_holes, flow_to_nnf, lr_check,
+    nnf_to_flow, outlier_removal,
 )
-from eppm_tpu.ops.pallas_wmf import (
-    coarse_occlusion_reconstruct, weighted_median_filter_auto,
-)
-from eppm_tpu.ops.resize import bilinear_resize
-from eppm_tpu.config import UNKNOWN_FLOW_THRESH
+from eppm.ops.resize import bilinear_resize
+from eppm.config import UNKNOWN_FLOW_THRESH
 
 
 def regions(gt):

@@ -14,13 +14,13 @@ BASELINE dataset shapes:
   kitti_fixtures/    4 sequences, 375x1242 (KITTI-2015 dims; wide frame,
                      horizontal-dominant motion; ground truth stored in
                      the KITTI 16-bit PNG flow format through
-                     eppm_tpu/io/kitti.py)
+                     eppm/io/kitti.py)
 
 Each sequence directory holds frame10.ppm, frame11.ppm and ground truth
 (flow10.flo, or flow10.png for KITTI).  frame10 = warp(frame11, gt), the
 standard inverse-warp construction: the flow maps frame10 pixel p to
 frame11 position p + gt(p).  Evaluation metric spec:
-/root/reference/basic/bao_flow_tools.cpp:64-141 (eppm_tpu/metrics.py).
+/root/reference/basic/bao_flow_tools.cpp:64-141 (eppm/metrics.py).
 
 Deterministic: fixed seed, pure NumPy.  Usage:
   python tools/make_eval_set.py [--root evalset]
@@ -34,9 +34,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from eppm_tpu.io import write_ppm
-from eppm_tpu.io.flo import write_flo
-from eppm_tpu.io.kitti import write_kitti_flow
+from eppm.io import write_ppm
+from eppm.io.flo import write_flo
+from eppm.io.kitti import write_kitti_flow
 
 
 def textured(rng, h, w):
@@ -166,7 +166,7 @@ def load_grove():
     """The bundled real Middlebury pair (the reference's own smoke input,
     main.cpp:56-57) — the only real-image data in this offline
     environment; EVAL.md documents the absence of network access."""
-    from eppm_tpu.io import read_ppm
+    from eppm.io import read_ppm
 
     f10 = read_ppm("/root/reference/frame10.ppm").astype(np.float32) / 255.0
     f11 = read_ppm("/root/reference/frame11.ppm").astype(np.float32) / 255.0

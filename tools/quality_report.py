@@ -21,10 +21,10 @@ sys.path.insert(0, ".")
 
 import dataclasses
 
-from eppm_tpu.config import DEFAULT_CONFIG
-from eppm_tpu.io import read_ppm
-from eppm_tpu.metrics import bad_pixel_rate, flow_error, warp_error
-from eppm_tpu.pipeline import compute_flow_jit
+from eppm.config import DEFAULT_CONFIG
+from eppm.io import read_ppm
+from eppm.metrics import bad_pixel_rate, flow_error, warp_error
+from eppm.pipeline import compute_flow_jit
 
 
 def _textured(rng, h, w):
@@ -82,7 +82,7 @@ def cases(rng, h=240, w=320):
 def main():
     import argparse
 
-    from eppm_tpu.cli import apply_overrides
+    from eppm.cli import apply_overrides
 
     ap = argparse.ArgumentParser()
     ap.add_argument(
@@ -146,8 +146,8 @@ def main():
         f"\nGrove warp error: dense {grove['dense']:.4f}, "
         f"patchmatch {grove['patchmatch']:.4f}, "
         f"zero-flow {grove['zero-flow']:.4f}.\n\n"
-        "The dense engine is the default (several-fold faster coarse "
-        "matching on TPU, incl. its exact-cost final stage); the "
+        "The dense engine is the default (dense, statically addressed "
+        "coarse matching, incl. its exact-cost final stage); the "
         "PatchMatch engine preserves the reference's search structure.  "
         "Generated by tools/quality_report.py.\n"
     )

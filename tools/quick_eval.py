@@ -7,7 +7,7 @@ For fast development loops on specific eval sequences:
 
 Prints one line per case and a mean.  The full dossier remains
 tools/eval_report.py; this is its single-case counterpart built on the
-same metric (eppm_tpu/metrics.py; spec basic/bao_flow_tools.cpp:64-141).
+same metric (eppm/metrics.py; spec basic/bao_flow_tools.cpp:64-141).
 """
 
 import argparse
@@ -29,12 +29,12 @@ def main():
 
     import jax
 
-    from eppm_tpu.cli import apply_overrides
-    from eppm_tpu.config import DEFAULT_CONFIG
-    from eppm_tpu.io import read_flo, read_ppm
-    from eppm_tpu.io.kitti import read_kitti_flow
-    from eppm_tpu.metrics import flow_error
-    from eppm_tpu.pipeline import compute_flow_jit
+    from eppm.cli import apply_overrides
+    from eppm.config import DEFAULT_CONFIG
+    from eppm.io import read_flo, read_ppm
+    from eppm.io.kitti import read_kitti_flow
+    from eppm.metrics import flow_error
+    from eppm.pipeline import compute_flow_jit
 
     cfg = apply_overrides(DEFAULT_CONFIG, args.overrides)
     epes = []

@@ -1,9 +1,8 @@
 #!/usr/bin/env python
 """Video-streaming throughput: cold vs temporal warm start.
 
-Generates a synthetic N-frame video (the bundled Grove frame rolled by a
-constant per-frame motion — same recipe as the 4K artifact in PERF.md),
-streams it through the CLI pipeline twice (cold, --temporal), and prints
+Generates a synthetic N-frame video (a seeded textured frame,
+eppm/synthetic.py, rolled by a constant per-frame motion), streams it through the CLI pipeline twice (cold, --temporal), and prints
 one JSON line per mode plus a quality check of the warm output against
 the known motion.
 
@@ -30,18 +29,10 @@ DY, DX = 2, 3  # px/frame, constant
 
 
 def make_frames(fdir: str, n: int, h: int, w: int) -> None:
-    from eppm_tpu.io import read_ppm, write_ppm
+    from eppm.io import write_ppm
+    from eppm.synthetic import textured_frame
 
-    base = np.asarray(read_ppm("/root/reference/frame10.ppm"))
-    if base.shape[:2] != (h, w):
-        import jax
-        import jax.numpy as jnp
-
-        base = np.asarray(
-            jax.image.resize(
-                jnp.asarray(base, jnp.float32), (h, w, 3), "linear"
-            )
-        ).clip(0, 255).astype(np.uint8)
+    base = (textured_frame(h, w) * 255.0).round().astype(np.uint8)
     for i in range(n):
         write_ppm(
             os.path.join(fdir, f"f{i:04d}.ppm"),
@@ -54,7 +45,7 @@ def run_mode(fdir: str, odir: str, temporal: bool) -> float:
     import contextlib
     import io as _io
 
-    from eppm_tpu.cli import main
+    from eppm.cli import main
 
     argv = ["--frames-dir", fdir, "--out-dir", odir]
     if temporal:
@@ -91,8 +82,8 @@ def main_() -> int:
             }), flush=True)
 
         # quality: warm output must still carry the known constant motion
-        from eppm_tpu.io import read_flo
-        from eppm_tpu.metrics import flow_error
+        from eppm.io import read_flo
+        from eppm.metrics import flow_error
 
         fl = read_flo(os.path.join(tmp, "flo_temporal",
                                    f"f{args.frames // 2:04d}.flo"))
